@@ -1,18 +1,18 @@
-"""pothoscomms_tpu — a TPU-native DSP / software-radio framework.
+"""pothoscomms_tpu — a JAX DSP / software-radio framework.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of
-pothosware/PothosComms (reference: /root/reference): a streaming dataflow
+A JAX/XLA implementation of the capabilities of
+pothosware/PothosComms: a streaming dataflow
 runtime (the part the reference borrows from Pothos core) plus the full
 block catalog — elementwise math, FFT, FIR/IIR filters and designers,
 waveform/noise sources, symbol coding, scramblers, PHY framing & sync,
 FM demodulation, MAC/LLC packet layer, and scope utilities.
 
-Architecture (TPU-first, not a port):
+Architecture (not a port):
 
 - **Functional cores** (`pothoscomms_tpu.ops`): every DSP kernel is a pure,
   jittable function ``(state, x) -> (state, y)`` over ``[channels, time]``
-  arrays. These run on the TPU VPU/MXU via XLA, with Pallas kernels for the
-  hot paths. This replaces the reference's xsimd SIMD dispatch layer
+  arrays. These compile through XLA for the accelerator (an NVIDIA GPU)
+  or the CPU. This replaces the reference's xsimd SIMD dispatch layer
   (reference: math/SIMD/*).
 - **Streaming runtime** (`pothoscomms_tpu.core`): blocks, typed ports,
   labels, packets, signals/slots, probes, and a topology executor with

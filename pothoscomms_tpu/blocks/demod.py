@@ -63,14 +63,11 @@ class FreqDemod(Block):
                 [self._prev[None, :],
                  np.stack([buf[:-1, 0], -buf[:-1, 1]], axis=-1)]
             )
-            from pothoscomms_tpu.core.device import compute_scope
-
-            with compute_scope(self.dtype):
-                prod = np.asarray(
-                    cint.mul(jnp.asarray(buf), jnp.asarray(prev_conj)))
-                re16 = prod[:, 0].astype(np.int16)
-                im16 = prod[:, 1].astype(np.int16)
-                u16 = np.asarray(fxpt_atan2(im16, re16))
+            prod = np.asarray(
+                cint.mul(jnp.asarray(buf), jnp.asarray(prev_conj)))
+            re16 = prod[:, 0].astype(np.int16)
+            im16 = prod[:, 1].astype(np.int16)
+            u16 = np.asarray(fxpt_atan2(im16, re16))
             out = u16.astype(self.out_dtype.np)  # Type(u16out) C cast
             self._prev = np.asarray([buf[-1, 0], -buf[-1, 1]],
                                     self.dtype.scalar.np)

@@ -9,11 +9,11 @@ Scaling contract (from the reference's kissfft configuration and tests):
   forward output is scaled by 1/N (fft/TestFFT.cpp:128-133); inverse is the
   exactly-normalized inverse DFT (TestFFT.cpp:152-156: ifft(N*scaled) == x).
 
-TPU-first: instead of the reference's one-transform-per-work loop
+Instead of the reference's one-transform-per-work loop
 (fft/FFT.cpp:61-72), all complete numBins windows queued on the input are
-batched into a single [k, numBins] jnp.fft call — on TPU this is one XLA
-fft op over the batch. The int16 path computes in complex64 (far more
-precise than 16-bit kiss_fft butterflies) and rounds on output.
+batched into a single [k, numBins] jnp.fft call — one XLA fft op over the
+batch. The int16 path computes in complex64 (far more precise than 16-bit
+kiss_fft butterflies) and rounds on output.
 """
 
 from __future__ import annotations
@@ -91,64 +91,35 @@ class FFTBlock(Block):
         if k == 0:
             return
         buf = port.buffer(k * nb)
-        on_tpu = jax.default_backend() != "cpu"
         if self.dtype.is_integer:
             x = np.asarray(buf).reshape(k, nb, 2)
-            if on_tpu:
-                # no int/complex HLOs on this backend: planar f32 matmul
-                # FFT, then reference scaling + rounding on host
-                from pothoscomms_tpu.parallel.fft import fft_planar
-                y = np.asarray(
-                    fft_planar(jnp.asarray(x, jnp.float32), nb, self.inverse)
-                )
-                y = y / nb  # int16 kiss path scales by 1/N both directions
-                out = np.round(y).astype(np.int16).reshape(k * nb, 2)
-            else:
-                out = np.asarray(_fft_int16(x, self.inverse)).reshape(k * nb, 2)
+            out = np.asarray(_fft_int16(x, self.inverse)).reshape(k * nb, 2)
         else:
             x = np.asarray(buf).reshape(k, nb)
-            if on_tpu and self.dtype.bits == 32:
-                from pothoscomms_tpu.parallel import cplx
-                from pothoscomms_tpu.parallel.fft import fft_planar
-                y = fft_planar(jnp.asarray(cplx.to_planar(x)), nb, self.inverse)
-                out = cplx.from_planar(np.asarray(y)).astype(
-                    self.dtype.np
-                ).reshape(k * nb)
-            else:
-                # complex_float64 keeps full fidelity on the host CPU
-                # backend in a chip session (device.py policy, same as
-                # FIR/IIR) instead of a lossy planar-f32 downcast
-                from pothoscomms_tpu.core.device import compute_scope
-
-                with compute_scope(self.dtype):
-                    out = np.asarray(
-                        _fft_float(x, self.inverse), dtype=self.dtype.np
-                    ).reshape(k * nb)
+            out = np.asarray(
+                _fft_float(x, self.inverse), dtype=self.dtype.np
+            ).reshape(k * nb)
         port.consume(k * nb)
         self.output(0).post(out)
 
     def device_core(self, channels: int):
-        """Fused-chain core (terminal stage): windowed MXU FFT. Input
+        """Fused-chain core (terminal stage): windowed matmul FFT. Input
         [C, T, 2] planar with T a multiple of numBins; output
         [C, T/numBins, numBins, 2] spectra. The complex_int16 path
-        computes in f32 and applies the kiss FIXED_POINT contract
-        (1/N both directions) + rounding INSIDE the program, so the
-        integer-valued plane materializes bit-identically to the
-        streaming path (VERDICT r4 #7: fusion past float32)."""
+        applies the kiss FIXED_POINT contract (1/N forward, normalized
+        inverse) + rounding INSIDE the program with the same complex64
+        ``jnp.fft`` as the streaming path (_fft_int16), so round() sees
+        identical values and the integer-valued plane matches the
+        streaming output bit for bit."""
         from pothoscomms_tpu.parallel.fft import fft_planar
 
         nb, inverse = self.num_bins, self.inverse
         fixed = self.dtype.is_integer
-        # bit-exact parity with the streaming path on EITHER backend:
-        # the chip lane streams through fft_planar too, but the CPU
-        # lane's streaming path uses complex64 jnp.fft (_fft_int16) —
-        # match it so round() sees identical values
-        cpu = jax.default_backend() == "cpu"
 
         def step(carry, x):
             c, t, _ = x.shape
             frames = x.reshape(c * (t // nb), nb, 2)
-            if fixed and cpu:
+            if fixed:
                 z = frames[..., 0] + 1j * frames[..., 1]
                 zf = jnp.fft.ifft(z, axis=-1) if inverse \
                     else jnp.fft.fft(z, axis=-1) / nb
@@ -156,8 +127,6 @@ class FFTBlock(Block):
                                  axis=-1)
             else:
                 spec = fft_planar(frames, nb, inverse)
-                if fixed:
-                    spec = jnp.round(spec / np.float32(nb))
             return carry, spec.reshape(c, t // nb, nb, 2)
 
         return (), step

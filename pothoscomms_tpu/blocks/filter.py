@@ -150,11 +150,6 @@ class FIRFilter(Block):
             if self.dtype.is_complex and not self._complex_taps:
                 # real taps applied to complex stream: promote to complex
                 self._taps_q = self._taps_q.astype(self.dtype.np)
-            if self.dtype.is_complex:
-                # planar-f32 taps for backends without complex HLOs
-                tq = np.asarray(self._taps_q, np.complex128)
-                self._taps_planar = np.stack(
-                    [tq.real, tq.imag], axis=-1).astype(np.float32)
         else:
             qbits = DType.parse(Q_ACCUMULATOR[self.dtype.scalar.name]).bits
             self._half_shift = qbits // 2
@@ -221,30 +216,11 @@ class FIRFilter(Block):
                 self._eob_samps_left = 0
             return
 
-        if (self._kind == "float" and self.dtype.is_complex
-                and self.dtype.bits == 32
-                and jax.default_backend() != "cpu"):
-            # no complex HLOs on this backend: planar f32 device path
-            # (same policy as FFTBlock.work). complex_float64 stays at
-            # full fidelity on the host CPU backend (device.py policy,
-            # matching IIRFilter) instead of a lossy f32 downcast.
-            xin = np.asarray(xh[: N + K - 1], np.complex64)
-            xp = np.stack([xin.real, xin.imag], -1)
-            y = fops.polyphase_fir(
-                jnp.asarray(xp), jnp.asarray(self._taps_planar),
-                M, L, K, "planar", 0,
-            )
-            yp = np.asarray(y)
-            out = (yp[..., 0] + 1j * yp[..., 1]).astype(self.dtype.np)
-        else:
-            from pothoscomms_tpu.core.device import compute_scope
-
-            with compute_scope(self.dtype):
-                y = fops.polyphase_fir(
-                    jnp.asarray(xh[: N + K - 1]), jnp.asarray(self._taps_q),
-                    M, L, K, self._kind, self._half_shift,
-                )
-            out = np.asarray(y)
+        y = fops.polyphase_fir(
+            jnp.asarray(xh[: N + K - 1]), jnp.asarray(self._taps_q),
+            M, L, K, self._kind, self._half_shift,
+        )
+        out = np.asarray(y)
         if self._kind == "float":
             out = out.astype(self.dtype.np)
         elif self._kind == "int":
@@ -415,8 +391,7 @@ class FIRFilter(Block):
         streaming semantics where the first K-1 inputs produce nothing
         (reference FIRFilter.cpp:305). This lets a freshly-committed
         source-headed chain engage on round one instead of paying a
-        full streaming warmup round through every member (each host
-        streaming hop costs ~0.5-2.5 s on this relay)."""
+        full streaming warmup round through every member."""
         return (self._M == 1 and self._L == 1
                 and self.input(0).elements() == 0)
 
@@ -538,19 +513,11 @@ class IIRFilter(Block):
             x = buf
         b = self._b / self._a[0]
         a = self._a / self._a[0]
-        from pothoscomms_tpu.core.device import compute_scope, cpu_device
-        import contextlib
-        import jax
-
-        # iir_df computes in f64/complex128 (spuce parity) — host CPU
-        # backend when the accelerator lacks those HLOs
-        scope = (contextlib.nullcontext() if jax.default_backend() == "cpu"
-                 else jax.default_device(cpu_device()))
-        with scope:
-            y, z = fops.iir_df(
-                jnp.asarray(x), jnp.asarray(b), jnp.asarray(a),
-                jnp.asarray(self._state),
-            )
+        # iir_df computes in f64/complex128 (spuce parity)
+        y, z = fops.iir_df(
+            jnp.asarray(x), jnp.asarray(b), jnp.asarray(a),
+            jnp.asarray(self._state),
+        )
         self._state = np.asarray(z)
         y = np.asarray(y)
         if self.dtype.is_complex_int:
@@ -570,7 +537,7 @@ class IIRFilter(Block):
 
     def device_core(self, channels: int):
         """Fused-chain core: blocked state-space IIR over planar f32 —
-        two MXU matmuls + an associative scan over T/L block states, no
+        two matmuls + an associative scan over T/L block states, no
         per-sample sequential dependency (ops/filter.py
         iir_blocked_operators; exact reformulation of DF-II-T). Falls
         back to the per-sample lax.scan only when no block length
@@ -747,13 +714,10 @@ class DCRemoval(Block):
             x = buf.astype(self._acc_np)
         else:
             x = buf
-        from pothoscomms_tpu.core.device import compute_scope
-
-        with compute_scope(self.dtype):
-            y, hists = fops.dc_removal(
-                jnp.asarray(x), jnp.asarray(self._hists),
-                self._average_size, self._cascade_size, is_int,
-            )
+        y, hists = fops.dc_removal(
+            jnp.asarray(x), jnp.asarray(self._hists),
+            self._average_size, self._cascade_size, is_int,
+        )
         self._hists = np.asarray(hists)
         y = np.asarray(y)
         if self.dtype.is_complex_int or is_int:
@@ -923,9 +887,8 @@ class EnvelopeDetector(Block):
             t = mag.shape[1]
             # blocked path pays W+L sequential steps total; worth it
             # only when it cuts the chain a LOT (t >= 4 blocks): at
-            # multi-channel small-t the channel axis already fills the
-            # VPU and the warmup overhead loses (measured: fm_chain
-            # C=256 t=16K ran 505 vs 659 Msamp/s with nb=2 blocking)
+            # multi-channel small-t the channel axis already gives the
+            # parallelism and the warmup overhead is pure cost
             if t % BLK == 0 and t >= 4 * BLK and W <= 2 * BLK:
                 y, env_f = fops.envelope_blocked(mag, carry, ga, gr,
                                                  BLK, W)

@@ -4,7 +4,7 @@
 /comms/frame_sync — plus the Hamming(8,4)/checksum8 header codec shared
 with the frame inserter (reference: digital/FrameHelper.hpp).
 
-TPU-first note on frame_sync: the reference walks candidate offsets one
+Note on frame_sync: the reference walks candidate offsets one
 sample at a time with early exit (FrameSync.cpp:470-497). Here the
 per-offset quantities (envelope windows, frequency estimate, dechirped
 correlation) are computed for ALL offsets at once with prefix sums and a
@@ -610,7 +610,7 @@ def run_sync_automaton(state: dict, arrays, mag_thresh: int, dur_thresh: int,
 # ---------------------------------------------------------------------- #
 @register_block("/comms/frame_sync", "/blocks/frame_sync")
 class FrameSync(Block):
-    """RX frame synchronizer. See module docstring for the TPU-first
+    """RX frame synchronizer. See module docstring for the data-parallel
     restructuring; numerics follow FrameSync.cpp:595-743."""
 
     DOC = {

@@ -3,7 +3,7 @@
 All 25 registered factories of the reference math module. Each block wraps a
 functional core from :mod:`pothoscomms_tpu.ops.elementwise` — a pure jnp
 function jitted once per block; under the fused-chain compiler these cores
-fuse with neighbors into a single XLA program (the TPU replacement for the
+fuse with neighbors into a single XLA program (the replacement for the
 reference's per-block SIMD dispatch, math/SIMD/*).
 """
 
@@ -37,7 +37,7 @@ class ElementwiseBlock(Block):
     (math/Arithmetic.cpp:46-67). Real-f32 blocks reuse the numpy-dtype
     core directly on the planar [C, T] block; complex-f32 blocks need an
     explicit ``planar_core`` over [C, T, 2] (re, im) planes because the
-    device path is planar-f32 only."""
+    fused stream layout is planar f32."""
 
     def __init__(self, dtype, core: Callable, n_in=1, n_out=1, out_dtype=None,
                  planar_core: Callable = None):
@@ -166,7 +166,7 @@ class Arithmetic(Block):
             return acc
 
         # donate in0 so XLA writes the output in place over the first
-        # input's buffer — the TPU-native equivalent of the reference's
+        # input's buffer — the equivalent of the reference's
         # setReadBeforeWrite in-place inlining (math/Arithmetic.cpp:165-168)
         self._chain = self.jit(chain, donate_argnums=(0,))
 
@@ -201,15 +201,8 @@ class Arithmetic(Block):
         if elems == 0:
             return
         bufs = [p.buffer(elems) for p in ports]
-        from pothoscomms_tpu.core.device import compute_scope
-
-        with compute_scope(self.dtype):
-            # x0 must be created under the same device scope the jitted
-            # chain runs in: on the accelerator backend an int/complex
-            # array created outside the scope would need a device->host
-            # copy the backend cannot execute (UNIMPLEMENTED)
-            x0 = jnp.asarray(bufs[0])
-            out = self._chain(x0, *bufs[1:])
+        x0 = jnp.asarray(bufs[0])
+        out = self._chain(x0, *bufs[1:])
         if x0.is_deleted():
             # XLA actually consumed in0's device buffer for the output
             # (the reference asserts this real inlining,

@@ -1,13 +1,13 @@
 """Element data types.
 
-TPU-native equivalent of ``Pothos::DType`` (reference: used by every block
+Equivalent of ``Pothos::DType`` (reference: used by every block
 factory, e.g. math/Arithmetic.cpp:259-283). A DType names an element kind
 (signed/unsigned integer of 8..64 bits, float of 32/64 bits), an optional
 complex flag, and a vector ``dimension`` (number of scalars per element —
 arithmetic blocks treat a dimension-D stream as D× more scalars, see
 math/Arithmetic.cpp:207 ``minElements * dimension``).
 
-Representation notes (TPU-first):
+Representation notes:
 
 - float / complex-float dtypes map directly onto numpy/jax dtypes.
 - **complex-integer** dtypes (``complex_int16`` etc. — the reference supports

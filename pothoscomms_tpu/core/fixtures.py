@@ -1,6 +1,6 @@
 """Test-fixture blocks.
 
-TPU-native equivalents of the Pothos-core test blocks every reference test
+the equivalents of the Pothos-core test blocks every reference test
 uses: ``/blocks/feeder_source``, ``/blocks/collector_sink``,
 ``/blocks/vector_source``, ``/blocks/copier``, ``/blocks/black_hole``
 (reference usage: math/TestArithmeticBlocks.cpp:519-543,
@@ -48,7 +48,7 @@ class FeederSource(Block):
 
     def feed_test_plan(self, plan: dict) -> dict:
         """Randomized buffer plan; returns {'expected': np.ndarray}
-        (TPU-native analog of the reference feeder's feedTestPlan json —
+        (analog of the reference feeder's feedTestPlan json —
         digital/TestFramerToCorrelator.cpp:51-58)."""
         rng = np.random.default_rng(plan.get("seed", 0))
         n_buffs = rng.integers(

@@ -11,7 +11,7 @@ Pothos core; no checkpointing anywhere). Here they are first-class:
   deques) rather than hidden actor stack state, a checkpoint is a
   filtered snapshot of block __dict__ plus port queues.
 - ``block_doc``/``catalog``: declarative per-block schema generated by
-  introspection — the TPU-native analog of the |PothosDoc comment DSL
+  introspection — the analog of the |PothosDoc comment DSL
   that Pothos parses into GUI/config metadata.
 """
 

@@ -1,6 +1,6 @@
 """Stream labels.
 
-TPU-native equivalent of ``Pothos::Label``: sparse (id, data, index, width)
+the equivalent of ``Pothos::Label``: sparse (id, data, index, width)
 annotations carried alongside a sample stream (reference usage: framing via
 frameStart/frameEnd labels digital/FrameInsert.cpp:199-281, sample-accurate
 reconfiguration math/Scale.cpp:104-122, trigger events

@@ -1,6 +1,6 @@
 """Packets — framed buffers with labels and metadata.
 
-TPU-native equivalent of ``Pothos::Packet``: a payload buffer plus a list of
+the equivalent of ``Pothos::Packet``: a payload buffer plus a list of
 labels (indexed relative to payload start) and a metadata dict (reference
 usage: mac/SimpleMac.cpp:124-177 packet I/O, digital/BytesToSymbols.cpp:91-119
 stream/packet dual mode, utility/WaveTrigger.cpp:515-591 scope events).

@@ -1,6 +1,6 @@
 """Q-format fixed-point helpers.
 
-TPU-native equivalent of ``Pothos::Util::QFormat`` (used by the reference's
+the equivalent of ``Pothos::Util::QFormat`` (used by the reference's
 fixed-point paths: math/Scale.cpp:15-23, math/Rotate.cpp, filter/FIRFilter.cpp
 :295-300, utility/SignalProbe.cpp:141-157).
 

@@ -1,6 +1,6 @@
 """String-keyed block factory registry.
 
-TPU-native equivalent of ``Pothos::BlockRegistry`` (reference:
+the equivalent of ``Pothos::BlockRegistry`` (reference:
 math/Arithmetic.cpp:285-289 — registration of "/comms/arithmetic" plus the
 legacy "/blocks/arithmetic" alias).
 """

@@ -1,6 +1,6 @@
 """Shared test helpers.
 
-TPU-native equivalent of the reference's ``common/Testing.hpp``:
+the equivalent of the reference's ``common/Testing.hpp``:
 ``stdVectorToBufferChunk`` (trivial here — numpy), ``stretchStdVector``
 (replicate data so vectorized code paths execute, :40-57), and
 ``testBufferChunksEqual/Close`` (:67-93).

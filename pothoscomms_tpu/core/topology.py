@@ -1,13 +1,13 @@
 """Topology: block graph + cooperative streaming executor.
 
-TPU-native equivalent of ``Pothos::Topology`` plus the scheduler loop of the
+Equivalent of ``Pothos::Topology`` plus the scheduler loop of the
 Pothos core framework (reference: every test builds one, e.g.
 filter/TestFIRDesigner.cpp:147-178 — connect, commit, waitInactive).
 
-Differences from the reference (deliberate, TPU-first):
+Differences from the reference (deliberate):
 
 - The reference runs one actor thread per block; we run a single-threaded
-  cooperative loop. TPU throughput does not come from host threads — it
+  cooperative loop. Device throughput does not come from host threads — it
   comes from the functional cores being fused/jitted; the executor only
   moves host-side buffers and control messages between device calls. For
   the high-rate path, chains of blocks are compiled into ONE jitted program
@@ -241,7 +241,7 @@ class Topology:
 
         ``timeout`` bounds the time spent *without forward progress* — a
         scheduling round that consumed/produced data resets the deadline.
-        (Wall-clock would be wrong on TPU: the first work() of each block
+        (Wall-clock would be wrong: the first work() of each block
         blocks on XLA compilation, which can exceed any reasonable idle
         timeout; that is activity, not quiescence.)
         """

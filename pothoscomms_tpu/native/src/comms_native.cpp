@@ -1,7 +1,7 @@
 // Native runtime kernels for pothoscomms_tpu.
 //
-// The TPU compute path is JAX/XLA; these C++ kernels cover the genuinely
-// bit-serial host-side paths that neither the VPU nor numpy vectorize:
+// The device compute path is JAX/XLA; these C++ kernels cover the genuinely
+// bit-serial host-side paths that neither XLA nor numpy vectorize:
 // the Galois LFSR keystream and the self-synchronizing (multiplicative)
 // scrambler/descrambler recursions (reference: digital/lfsr.h:64-100,
 // digital/Scrambler.cpp:137-152, digital/Descrambler.cpp:137-151), the

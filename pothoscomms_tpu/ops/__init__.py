@@ -1,7 +1,6 @@
 """Functional cores — pure jittable JAX kernels for every block.
 
-This is the compute path of the framework: every DSP kernel here runs on
-the TPU VPU/MXU via XLA (with Pallas kernels for the hottest loops). It
-replaces the reference's xsimd SIMD kernel library (math/SIMD/*) and its
+This is the compute path of the framework: every DSP kernel here
+compiles through XLA for JAX's default device. It replaces the reference's xsimd SIMD kernel library (math/SIMD/*) and its
 per-sample C++ loops with vectorized array programs.
 """

@@ -3,7 +3,7 @@
 The behavioral contract of the reference's math module: the exact op list of
 math/SIMD/MathBlocks.json over the full dtype matrix, with C++ scalar
 semantics (integer wraparound, truncating integer division, C-style
-float→int casts). On TPU these all lower to VPU elementwise code and fuse
+float→int casts). These all lower to elementwise code and fuse
 freely under XLA — the entire SIMD dispatch layer of the reference
 (math/SIMD/*, runtime CPU-feature dispatch) collapses into this table.
 

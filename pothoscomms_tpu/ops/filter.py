@@ -1,6 +1,6 @@
 """Filter functional cores (jnp, jitted per shape).
 
-TPU-first reformulations of the reference filter hot loops:
+Vectorized reformulations of the reference filter hot loops:
 
 - ``polyphase_fir``: the rational-resampler convolution
   (filter/FIRFilter.cpp:286-302) as a vectorized gather + phase-selected
@@ -33,6 +33,7 @@ import jax.numpy as jnp
 
 from pothoscomms_tpu.core.dtypes import DType
 from pothoscomms_tpu.core.qformat import Q_ACCUMULATOR, float_to_q
+from pothoscomms_tpu.parallel.cplx import PRECISION
 
 
 # ---------------------------------------------------------------------- #
@@ -127,8 +128,7 @@ def polyphase_fir(xh, taps_q, M: int, L: int, K: int, kind: str,
         return (acc >> half_shift)
 
     if kind == "planar":
-        # complex data/taps as planar f32 (the TPU device path: no
-        # complex HLOs on this backend)
+        # complex data/taps as planar f32 (the fused stream layout)
         fr = xh[gidx]                          # [T, K, 2]
         ts = taps_q[j_idx]                     # [T, K, 2]
         pr = fr[..., 0] * ts[..., 0] - fr[..., 1] * ts[..., 1]
@@ -157,7 +157,7 @@ def rational_fir_operators(taps, M: int, L: int, block_in: int = None):
 
     with T0 [B_in, B_out], T1 [K-1, B_out] built from the polyphase
     map (filter/FIRFilter.cpp:286-302: output t at upsampled position
-    u = t*M + M-1, y[t] = sum_k taps[u%L + k*L] * x[u//L - k]). The MXU
+    u = t*M + M-1, y[t] = sum_k taps[u%L + k*L] * x[u//L - k]). The
     matmul replaces the [T, K] gather formulation — the same trade that
     won for the 1:1 FIR (fir_toeplitz_matrices).
 
@@ -203,8 +203,7 @@ def rational_fir_mm(x, history, t0, t1, b_in: int, b_out: int):
 
     def cmm(a, m):
         mm = lambda p, q: jnp.matmul(
-            p, q, preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGH)
+            p, q, preferred_element_type=jnp.float32, precision=PRECISION)
         ar, ai = a[..., 0], a[..., 1]
         mr, mi = m[..., 0], m[..., 1]
         return jnp.stack(
@@ -248,7 +247,7 @@ def iir_df(x, b, a, z0):
 
 
 def iir_blocked_operators(b: np.ndarray, a: np.ndarray, L: int):
-    """Blocked state-space operators for the TPU-parallel IIR core
+    """Blocked state-space operators for the parallel IIR core
     (SURVEY.md hard-part #2: sequential recursions as blocked /
     associative-scan formulations).
 
@@ -300,15 +299,15 @@ def iir_blocked_operators(b: np.ndarray, a: np.ndarray, L: int):
 def iir_blocked_step(xp, z0, Hmat, Wz, M, G, L: int):
     """One blocked-IIR quantum: xp [P, T] planes (T % L == 0), z0
     [O, P] state -> (y [P, T], z_final [O, P]). Fully parallel: two
-    MXU matmuls + one associative scan over T/L blocks."""
+    matmuls + one associative scan over T/L blocks."""
     P, t = xp.shape
     order = z0.shape[0]
     nb = t // L
     xb = xp.reshape(P, nb, L)
-    # HIGHEST precision throughout: the recurrence compounds per-block
-    # error, and the chip's DEFAULT einsum is 1-pass bf16 — it breached
-    # the f64-oracle tolerance in the real-TPU lane (round 4)
-    es = partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST,
+    # PRECISION (plain f32) throughout: the recurrence compounds
+    # per-block error, and a reduced-precision contraction (TF32 on a
+    # GPU) would breach the f64-oracle tolerance
+    es = partial(jnp.einsum, precision=PRECISION,
                  preferred_element_type=jnp.float32)
     u = es("pnl,ol->nop", xb, G)  # [nb, O, P]
     Mt = jnp.broadcast_to(M, (nb, order, order))
@@ -425,11 +424,9 @@ def envelope_blocked(xabs, env0, attack_gain, release_gain,
     nb = T // L
     # W rounded UP to a whole number of L-blocks: the overlapping
     # window tensor is then built from K+1 SHIFTED VIEWS of a plain
-    # [P, nb+K, L] reshape — zero gathers. (The previous fancy-index
-    # build xfull[:, idx] lane-padded every element ~x128 on this
-    # backend and cost 861 ms of the FM chain's 32 Mi quantum; the
-    # slice build plus the scan is ~25 ms — benches/probe_r5_env2.py.)
-    # A longer warmup only tightens the 2^-25 convergence bound.
+    # [P, nb+K, L] reshape — zero gathers (a fancy-index window build
+    # materializes a per-element gather). A longer warmup only tightens
+    # the 2^-25 convergence bound.
     K = -(-W // L)
     Wr = K * L
     # xfull[p, Wr + t] = x[p, t]; the first Wr entries are the env0

@@ -12,9 +12,8 @@ acceptance automaton and one-off header decode stay on the host
 Also here: the preamble correlator's sliding hamming distance
 (digital/PreambleCorrelator.cpp:130-151) as a bit-plane correlation —
 XOR-popcount decomposes into ``dist[i] = C + sum_j x_bits[i+j] @ (1 -
-2*p_bits[j])``, a plain correlation that runs on the MXU (the TPU
-backend has no integer HLOs; bit planes of uint8 symbols are exact in
-float32).
+2*p_bits[j])``, a plain float32 correlation (bit planes of uint8
+symbols are exact in float32).
 """
 
 from __future__ import annotations

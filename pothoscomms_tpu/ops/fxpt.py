@@ -1,4 +1,4 @@
-"""Fixed-point helper kernels, vectorized for the TPU VPU.
+"""Fixed-point helper kernels, vectorized.
 
 Re-implementations (math-level, vectorized) of the reference's fixed-point
 helpers:

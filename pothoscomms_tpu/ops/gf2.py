@@ -1,4 +1,4 @@
-"""GF(2) affine state-space operators for LFSR scrambling on the MXU.
+"""GF(2) affine state-space operators for LFSR scrambling as matmuls.
 
 The reference's scrambler/descrambler/keystream loops are bit-serial
 recursions over a Galois LFSR (reference: digital/lfsr.h:64-100,
@@ -20,7 +20,7 @@ samples,
 with the block recurrence solved by one ``lax.associative_scan`` over
 constant-matrix affine pairs. All matrices are 0/1 valued, so f32
 matmuls are EXACT (products of 0/1 are exact in bf16, sums <= Lb <<
-2^24 accumulate exactly in the MXU's f32 accumulators); a final
+2^24 accumulate exactly in the f32 matmul accumulators); a final
 ``x - 2*floor(x/2)`` reduces mod 2.
 
 Rather than hand-deriving (A, b, w) per mode — an error-prone

@@ -2,11 +2,12 @@
 
 A chain of blocks compiles into ONE jitted function over a
 ``[channels, time, 2]`` planar-complex block with explicit carry state —
-the TPU replacement for the reference's per-block scheduler hops
+the replacement for the reference's per-block scheduler hops
 (SURVEY.md §2.13(1)). The FIR convolution runs as a single
 ``lax.conv_general_dilated`` with a 2x2 feature-mixing kernel (complex
-multiply expressed as real conv), which XLA maps onto the MXU; the FFT is
-the matmul factorization in parallel/fft.py.
+multiply expressed as real conv) or as block-Toeplitz matmuls; the FFT
+is the matmul factorization in parallel/fft.py. Which formulation wins
+on the GPU is open (ROADMAP §1.4-1.5).
 """
 
 from __future__ import annotations
@@ -60,10 +61,7 @@ def fir_multichannel(x, history, kernel, decim: int = 1):
         padding="VALID",
         dimension_numbers=("NCW", "OIW", "NCW"),
         preferred_element_type=jnp.float32,
-        # DEFAULT would run the MXU conv in 1-pass bf16 on TPU and
-        # breach the reference numeric tolerances (same finding as the
-        # matmul study, benches/probe_tpu9.py)
-        precision=jax.lax.Precision.HIGHEST,
+        precision=cplx.PRECISION,
     )                                                  # [C, 2, T//decim]
     y = jnp.moveaxis(out, 1, -1)
     new_hist = xin[:, xin.shape[1] - (k - 1):, :] if k > 1 else \
@@ -78,8 +76,7 @@ def fir_toeplitz_matrices(taps, block: int = 128):
     With time grouped into length-B blocks, causal convolution with K<=B
     taps is y_b = x_b @ T0 + x_{b-1} @ T1 where
     T0[i, j] = h[j - i] (0 <= j-i < K) and T1[i, j] = h[j - i + B].
-    On this TPU the MXU path runs ~8x faster than conv_general_dilated
-    for the same FIR (the extra zero-band FLOPs are free at matmul rate).
+    The zero band costs extra FLOPs, traded for matmul throughput.
     """
     h = np.asarray(taps, np.complex128)
     k = len(h)
@@ -115,11 +112,9 @@ def fir_multichannel_mm(x, history, t0, t1, block: int = 128):
     prev = jnp.concatenate([prev_tail[:, None], xb[:, :-1]], axis=1)
 
     def cmm(a, m):
-        # HIGHEST precision: default MXU bf16 would breach the reference
-        # numeric tolerances (see parallel/cplx.matmul)
         mm = lambda p, q: jnp.matmul(
             p, q, preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,
+            precision=cplx.PRECISION,
         )
         ar, ai = a[..., 0], a[..., 1]
         mr, mi = m[..., 0], m[..., 1]
@@ -158,20 +153,18 @@ def fir_fft_step_mm(x, history, t0, t1, nbins: int):
 
 
 # ---------------------------------------------------------------------- #
-# Combined FIR*DFT operator — the fastest formulation measured on this
-# chip (benches/probe_tpu5-8.py): the whole FIR -> windowed-FFT chain is
-# TWO complex matmuls per 1024-window,
+# Combined FIR*DFT operator: the whole FIR -> windowed-FFT chain is TWO
+# complex matmuls per 1024-window,
 #
 #     spec_w = x_w @ G0 + prev_tail_w @ G1,   G = Toeplitz(h) . F
 #
 # each evaluated as THREE real matmuls (Karatsuba: yi from
-# (ar+ai)(br+bi) - arbr - aibi) at Precision.HIGH. Rationale, measured:
-# the separate Toeplitz-FIR + two-stage-FFT program spends most of its
-# time in inter-matmul data movement (precision changes move it <2%);
-# folding everything into one dense operator trades 3x the FLOPs for a
-# single FLOP-bound matmul pair and wins ~1.9x end to end. G matrices
-# are passed as ARGUMENTS, not closure constants — megabyte HLO
-# constants choke the remote compiler.
+# (ar+ai)(br+bi) - arbr - aibi). Folding everything into one dense
+# operator trades ~3x the FLOPs for a single matmul pair with no
+# intermediate passes; it was chosen on an accelerator whose memory
+# bandwidth bound the separate form, and is open on the GPU (ROADMAP
+# §1.5). G matrices are passed as ARGUMENTS, not closure constants,
+# so they upload once and stay out of the compiled program.
 # ---------------------------------------------------------------------- #
 def combined_fir_fft_operators(taps, nbins: int, prev_pad: int = 128):
     """(G0 [nbins, nbins], G1 [prev_pad, nbins]) real/imag planes for the
@@ -203,11 +196,10 @@ def fir_fft_combined_step(x, hist, g0r, g0i, g0s, g1r, g1i, g1s,
     """One combined FIR+FFT step: x [C, T, 2] -> (spectra
     [C, T//nbins, nbins, 2], new_hist [C, k-1, 2]).
 
-    MERGED single-matmul form (round 4): the window and its previous
-    tail concatenate into one [.., prev_pad + nbins] operand against
-    the stacked [G1; G0] operator — one Karatsuba matmul triple instead
-    of two, measured +8% over the separate pair on this chip
-    (PERF_r04.json merged_ms vs combined_ms)."""
+    MERGED single-matmul form: the window and its previous tail
+    concatenate into one [.., prev_pad + nbins] operand against the
+    stacked [G1; G0] operator — one Karatsuba matmul triple instead of
+    two."""
     c, t, _ = x.shape
     nw = t // nbins
     xw = x.reshape(c, nw, nbins, 2)
@@ -221,7 +213,7 @@ def fir_fft_combined_step(x, hist, g0r, g0i, g0s, g1r, g1i, g1s,
     g01i = jnp.concatenate([g1i, g0i], axis=0)
     g01s = jnp.concatenate([g1s, g0s], axis=0)
     mm = lambda p, w: jnp.matmul(p, w, preferred_element_type=jnp.float32,
-                                 precision=jax.lax.Precision.HIGH)
+                                 precision=cplx.PRECISION)
     ar, ai = a[..., 0], a[..., 1]
     p1 = mm(ar, g01r)
     p2 = mm(ai, g01i)
@@ -254,14 +246,12 @@ def fir_fft_combined_step(x, hist, g0r, g0i, g0s, g1r, g1i, g1s,
 # the m=0 term always has weight 1, so only raw samples cross the
 # quantum boundary.
 #
-# MEASURED OUTCOME (benches/probe_r4_split.py -> SPLIT_r04.json): the
-# formulation is numerically clean (max_abs_err ~1e-3 vs the 0.01
-# contract) but LOSES on this chip — 19/24/37 ms at R=4/8/16 vs 14.9 ms
-# dense: XLA materializes every v_r stream build as a full HBM pass, so
-# each extra stream costs ~a duplex pass (60 GB/s roof,
-# PERF_r04.json) and the saved matmul FLOPs never pay it back. Kept as
-# the minimal-FLOP reference formulation (oracle-tested); production
-# dispatch stays on the dense combined operator.
+# The formulation is numerically clean but lost to the dense operator
+# on the accelerator it was written for, where XLA materialized every
+# v_r stream build as a full memory pass. Kept as the minimal-FLOP
+# reference formulation (oracle-tested); production dispatch stays on
+# the dense combined operator until ROADMAP §1.5 measures it on the
+# GPU.
 # ---------------------------------------------------------------------- #
 def split_stream_fir_fft_operators(taps, nbins: int, R: int, pp: int):
     """Per-stream (G0 [W, W], G1 [pp, W]) planar operator pairs,
@@ -301,8 +291,7 @@ def make_split_step(taps, nbins: int, R: int, pp: int = 64):
     k = len(taps)
     W = nbins // R
     ops, wr = split_stream_fir_fft_operators(taps, nbins, R, pp)
-    # flat param tuple (jit args, not closure constants: big HLO
-    # constants choke the remote compiler)
+    # flat param tuple (jit args, not closure constants)
     flat = []
     for (g0r, g0i), (g1r, g1i) in ops:
         flat += [g0r, g0i, g0r + g0i, g1r, g1i, g1r + g1i]
@@ -322,7 +311,7 @@ def make_split_step(taps, nbins: int, R: int, pp: int = 64):
             [hist[:, None], qt[:, :-1, R - 1]], axis=1)  # [c, nw, k1, 2]
         mm = lambda a, w_: jnp.matmul(
             a, w_, preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGH)
+            precision=cplx.PRECISION)
 
         def cmm3(a, wr_, wi_, ws_):
             ar, ai = a[..., 0], a[..., 1]
@@ -379,12 +368,11 @@ def make_split_step(taps, nbins: int, R: int, pp: int = 64):
 # so with u_w[m-1] = prev_tail[-m] - x_w[-m] (K-1 values) and
 # Gc[m-1, k] = sum_j h[j+m] F[j, k] precomputed, FFT(Delta) = u_w @ Gc.
 # Cost per sample: ~(n1+n2) FFT MACs + 1 (H) + (K-1)/nbins matmul —
-# ~4x fewer FLOPs than the dense combined operator. Measured on this
-# chip it is nonetheless SLOWER (1547 vs 2461 Msamp/s at T=131072): the
-# two-factor FFT's transposes/reshapes make it movement-bound, and the
-# saved FLOPs don't pay for the extra passes. Kept as the minimal-FLOP
+# ~4x fewer FLOPs than the dense combined operator. It lost to the
+# dense operator on the accelerator it was written for (the two-factor
+# FFT's transposes made it movement-bound). Kept as the minimal-FLOP
 # reference formulation (exercised by tests); the production dispatch
-# uses the combined operator below.
+# uses the combined operator, pending ROADMAP §1.5 on the GPU.
 # ---------------------------------------------------------------------- #
 def circ_correction_operators(taps, nbins: int):
     """(H [nbins] planar, Gc [K-1, nbins] planes) for the circular-
@@ -423,7 +411,7 @@ def fir_fft_circ_step(x, hist, Hp, gcr, gci, gcs, nbins: int, k: int):
         [hist[:, None, ::-1, :], tails[:, :-1]], axis=1)
     u = prev_tails - tails
     mm = lambda a, w: jnp.matmul(a, w, preferred_element_type=jnp.float32,
-                                 precision=jax.lax.Precision.HIGH)
+                                 precision=cplx.PRECISION)
     ur, ui = u[..., 0], u[..., 1]
     p1 = mm(ur, gcr)
     p2 = mm(ui, gci)
@@ -439,11 +427,8 @@ def fir_fft_chain(taps, nbins: int, channels: int, block: int,
     """Build the jitted chain closure + initial carry for given shapes.
 
     decim == 1 with <= 129-tap filters and block % nbins == 0 uses the
-    combined FIR*DFT operator (fastest measured on this chip — 2461
-    Msamp/s vs 1547 for the minimal-FLOP circular-correction path and
-    ~1330 for separate Toeplitz FIR + FFT). Falls back to the
-    square-Toeplitz matmul FIR + matmul FFT, then the conv path for
-    rational rates.
+    combined FIR*DFT operator. Falls back to the square-Toeplitz matmul
+    FIR + matmul FFT, then the conv path for rational rates.
     """
     taps = np.asarray(taps)
     k = len(taps)

@@ -2,7 +2,7 @@
 
 The streaming executor (core/topology.py) is the semantics path: every
 block's work() runs separately with host-side buffers between them. For
-high-rate multichannel processing that is the wrong granularity on TPU —
+high-rate multichannel processing that is the wrong granularity —
 the whole chain should be a single XLA program over a
 ``[channels, time]`` block with explicit carry, so everything fuses and
 nothing bounces through HBM/host between stages (SURVEY.md §2.13(1):
@@ -18,8 +18,8 @@ planar float32 arrays:
 :func:`compile_chain` composes the cores front to back and jits the
 result. Carries are pytrees (tuple per block).
 
-Device dtype policy: float32 only (the TPU backend has no complex/int/
-f64 HLOs); the streaming blocks keep full dtype fidelity on the host.
+Device cores are planar float32; the streaming blocks keep full dtype
+fidelity (ROADMAP §3.4 reopens the layout).
 """
 
 from __future__ import annotations

@@ -1,15 +1,23 @@
 """Planar-complex float32 helpers.
 
-The TPU backend computes in real float32/bfloat16 only; complex values are
-carried as a trailing (re, im) axis of size 2. These helpers keep that
-representation readable. (Same layout as the complex-int streams in
+The fused device kernels carry complex values as a trailing (re, im)
+axis of size 2 of float32. These helpers keep that representation
+readable. (Same layout as the complex-int streams in
 core/dtypes.py, so host<->device conversion is uniform.)
 """
 
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+
+# Precision of every planar f32 contraction on the device. HIGHEST is
+# plain FP32 (an FP32 cuBLAS GEMM on an H100). HIGH compiles to TF32
+# there (10-bit mantissa, rel err ~2.5e-4 per product) and misses the
+# reference's 0.01-abs FFT contract (fft/TestFFT.cpp:55-56) on the
+# 1024-bin FIR->FFT chain with inputs in [-1, 1].
+PRECISION = jax.lax.Precision.HIGHEST
 
 
 def to_planar(x: np.ndarray) -> np.ndarray:
@@ -57,22 +65,14 @@ def cabs(x):
     return jnp.sqrt(abs2(x))
 
 
-def matmul(x, f_re, f_im, precision=None):
+def matmul(x, f_re, f_im):
     """Planar-complex matrix multiply: x [..., N, 2] @ F [N, M] complex
-    given as two real matrices. Four real MXU matmuls.
-
-    precision defaults to HIGHEST: the TPU MXU's default single-pass
-    bf16 contraction costs ~2e-3 relative error, which breaks the FFT
-    parity contract (fft/TestFFT.cpp abs 0.01) at >=1024 bins.
+    given as two real matrices, at ``PRECISION``. Four real matmuls.
 
     Returns [..., M, 2].
     """
-    import jax
-
-    if precision is None:
-        precision = jax.lax.Precision.HIGHEST
     mm = lambda a, b: jnp.matmul(
-        a, b, preferred_element_type=jnp.float32, precision=precision
+        a, b, preferred_element_type=jnp.float32, precision=PRECISION
     )
     xr, xi = x[..., 0], x[..., 1]
     yr = mm(xr, f_re) - mm(xi, f_im)

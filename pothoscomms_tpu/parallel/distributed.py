@@ -1,11 +1,12 @@
 """Multi-host runtime setup (jax.distributed) + mesh construction.
 
 The reference's only cross-process story is the Pothos TCP remote proxy
-(SURVEY.md §2.13(4)); the TPU-native equivalent mandated by BASELINE.md
-is a multi-host mesh: every host calls :func:`initialize`, then builds a
+(SURVEY.md §2.13(4)); the equivalent mandated by BASELINE.md is a
+multi-host mesh: every host calls :func:`initialize`, then builds a
 global mesh with :func:`make_global_mesh` and runs the same
 channel/time-sharded chains from :mod:`pothoscomms_tpu.parallel.mesh` —
-XLA routes intra-host collectives over ICI and cross-host legs over DCN.
+XLA routes collectives between the cards of a host over NVLink and
+cross-host legs over the network.
 
 Single-process multi-device simulation (CI): set
 ``XLA_FLAGS=--xla_force_host_platform_device_count=N JAX_PLATFORMS=cpu``
@@ -26,8 +27,8 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Bring up the multi-host runtime (idempotent).
 
-    On TPU pods with standard env (TPU_WORKER_HOSTNAMES etc.) all
-    arguments auto-detect; pass them explicitly for manual clusters:
+    Pass the arguments explicitly; nothing on a plain GPU host
+    describes the cluster to JAX:
 
         initialize("10.0.0.1:8476", num_processes=4, process_id=rank)
     """
@@ -51,7 +52,7 @@ def make_global_mesh(axis: str = "ch",
 
 def make_2d_mesh(ch: int, t: int) -> Mesh:
     """[channel, time] mesh: channels stay intra-host where possible so
-    the (channel-local) halo exchange of time sharding rides ICI."""
+    the (channel-local) halo exchange of time sharding rides NVLink."""
     devs = np.asarray(jax.devices())
     if devs.size != ch * t:
         raise ValueError(f"need {ch * t} devices, have {devs.size}")

@@ -1,21 +1,21 @@
-"""MXU-native FFT: Cooley-Tukey four-step factorization as real matmuls.
+"""Matmul FFT: Cooley-Tukey four-step factorization as real matmuls.
 
-The TPU backend has no FFT HLO (and no complex dtype), so the FFT is
-computed where TPU FLOPs live — on the 128x128 MXU systolic array — as a
-two-factor Cooley-Tukey decomposition N = N1*N2:
+The fused chains compute the FFT on planar float32 as a two-factor
+Cooley-Tukey decomposition N = N1*N2 (the formulation was chosen for an
+accelerator without FFT or complex HLOs; ROADMAP §1.4 weighs it against
+``jnp.fft`` on the GPU):
 
     X[k2*N1 + k1] = sum_{n2} W_N^{n2 k1} W_{N2}^{n2 k2}
                     * (sum_{n1} x[n1*N2 + n2] W_{N1}^{n1 k1})
 
-Step 1: batched [*, N2, N1] @ [N1, N1] DFT matmul (contraction on MXU).
-Step 2: elementwise twiddle multiply (VPU, fuses with step 1 epilogue).
+Step 1: batched [*, N2, N1] @ [N1, N1] DFT matmul.
+Step 2: elementwise twiddle multiply (fuses with step 1 epilogue).
 Step 3: batched [*, N1, N2] @ [N2, N2] DFT matmul.
 
 Complex arithmetic is planar float32 (parallel/cplx.py): each complex
-matmul is 4 real MXU matmuls. Cost per transform is N*(N1+N2) complex
-MACs vs N*log2(N) for scalar radix-2 — 3-5x more FLOPs, but they run at
-MXU rate instead of VPU rate, and the data layout stays dense [8,128]
-tiles throughout. Small N (<= 256) uses a single direct DFT matmul.
+matmul is 4 real matmuls. Cost per transform is N*(N1+N2) complex
+MACs vs N*log2(N) for scalar radix-2 — 3-5x more FLOPs, traded for
+matmul throughput. Small N (<= 256) uses a single direct DFT matmul.
 
 Scaling matches the reference contract (fft/TestFFT.cpp): forward = plain
 DFT; inverse = unnormalized (gain N over a round trip).
@@ -57,10 +57,9 @@ def _twiddles(n1: int, n2: int, inverse: bool):
 def _split_factor(n: int) -> int:
     """Pick N1 with N2 = n/N1 the second-stage contraction size.
 
-    Measured on-chip at HIGHEST precision (exact f32): a lane-sized
-    second stage (N2 = 128) wins — n=1024 as 8x128 runs 4.53 ms vs
-    5.51 ms direct and 4.67 ms for 32x32 (8192 windows). Prefer
-    N2 = 128; fall back to a near-sqrt split for other factorizations.
+    Prefers a 128-wide second stage (N2 = 128); falls back to a
+    near-sqrt split for other factorizations. The choice predates the
+    GPU and is not re-measured there (ROADMAP §1.4).
     """
     if n % 128 == 0 and n // 128 >= 4:
         return n // 128

@@ -1,9 +1,10 @@
-"""Mesh sharding for multi-chip scale-out.
+"""Mesh sharding for multi-device scale-out.
 
 The reference has no distribution layer (SURVEY.md §2.13(4): Pothos remote
-proxy only); this module is the TPU-native equivalent mandated by
-BASELINE.md's north star: shard [channel, time] streams over a
-``jax.sharding.Mesh``, with XLA collectives riding ICI.
+proxy only); this module is the equivalent mandated by BASELINE.md's
+north star: shard [channel, time] streams over a ``jax.sharding.Mesh``,
+with XLA collectives riding NVLink between the cards of a host (all to
+all, so the mesh shape follows the algorithm only).
 
 Two shardings are provided:
 
@@ -98,7 +99,8 @@ def grid_sharded_fir(mesh: Mesh, taps, decim: int = 1):
     (no collectives), time split over "t" with K-1 halos via ppermute.
 
     The mesh should be built with parallel.distributed.make_2d_mesh so
-    the "t" ring stays intra-host (halos ride ICI, not DCN). Returns
+    the "t" ring stays within one host (halos ride NVLink, not the
+    network). Returns
     f(x, carry) -> (y, new_carry); carry is the stream tail [C, K-1, 2]
     replicated over the mesh.
     """

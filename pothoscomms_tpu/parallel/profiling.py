@@ -45,11 +45,8 @@ def chain_flops(channels: int, time: int, taps: int, nbins: int) -> dict:
     - ``executed``: the production combined-operator path
       (parallel/chain.fir_fft_combined_step): (nbins + prev_pad=128)
       complex MACs per sample through Karatsuba 3-matmul complex
-      multiplies (6 real flops per MAC). The 3x FLOP overhead over
-      ``necessary`` is deliberate: measured on this chip the dense
-      single-operator form is FLOP-bound and beats both the
-      movement-bound separate form (~1330 Msamp/s) and the minimal-FLOP
-      circular-correction form (1547) at 2461 Msamp/s.
+      multiplies (6 real flops per MAC), ~3x ``necessary``. Whether
+      that trade pays on the GPU is open (ROADMAP §1.5).
     """
     samples = channels * time
     n1 = max(nbins // 128, 1)

@@ -78,7 +78,7 @@ assert checked > 0
 # Time-sharded FIR over the SAME global mesh re-axised as a "t"
 # ring: the K-1 overlap-save halos travel right via lax.ppermute,
 # and with 8 devices split across 2 processes the exchange at the
-# 3|4 boundary crosses the process boundary — the actual ICI/DCN
+# 3|4 boundary crosses the process boundary — the actual inter-device
 # traffic of the north star (round-2 verdict missing #3).
 # ---------------------------------------------------------------- #
 from jax.sharding import Mesh  # noqa: E402

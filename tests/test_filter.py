@@ -826,19 +826,8 @@ def test_iir_blocked_core_matches_sequential():
     """The blocked state-space IIR core (associative scan, VERDICT r3
     next #4) must match the per-sample sequential scan exactly (f32
     tolerance), real and complex, across block-ladder quantum sizes."""
-    import contextlib
-
-    import jax
     import jax.numpy as jnp
-    from pothoscomms_tpu.core.device import cpu_device
     from pothoscomms_tpu.core.registry import BlockRegistry
-
-    # the f64/c128 iir_df oracle must run on the host CPU backend: the
-    # real chip has no C128/F64 HLOs (same scoping the block's own
-    # streaming path uses)
-    oracle_scope = (contextlib.nullcontext()
-                    if jax.default_backend() == "cpu"
-                    else jax.default_device(cpu_device()))
 
     rng = np.random.default_rng(9)
     # a stable biquad (the block's default butterworth-ish taps)
@@ -862,36 +851,34 @@ def test_iir_blocked_core_matches_sequential():
             b = np.asarray(taps[:3]) / taps[3]
             a = np.asarray(taps[3:]) / taps[3]
             xn = np.asarray(x)
-            with oracle_scope:
-                if is_cplx:
-                    xc = xn[0, :, 0] + 1j * xn[0, :, 1]
-                    y_ref, z_ref = iir_df(jnp.asarray(xc), jnp.asarray(b),
-                                          jnp.asarray(a),
-                                          jnp.zeros(2, jnp.complex128))
-                    y_ref = np.stack([np.asarray(y_ref).real,
-                                      np.asarray(y_ref).imag], -1)[None]
-                else:
-                    y_ref, z_ref = iir_df(jnp.asarray(xn[0]),
-                                          jnp.asarray(b), jnp.asarray(a),
-                                          jnp.zeros(2, jnp.float64))
-                    y_ref = np.asarray(y_ref)[None]
+            if is_cplx:
+                xc = xn[0, :, 0] + 1j * xn[0, :, 1]
+                y_ref, z_ref = iir_df(jnp.asarray(xc), jnp.asarray(b),
+                                      jnp.asarray(a),
+                                      jnp.zeros(2, jnp.complex128))
+                y_ref = np.stack([np.asarray(y_ref).real,
+                                  np.asarray(y_ref).imag], -1)[None]
+            else:
+                y_ref, z_ref = iir_df(jnp.asarray(xn[0]),
+                                      jnp.asarray(b), jnp.asarray(a),
+                                      jnp.zeros(2, jnp.float64))
+                y_ref = np.asarray(y_ref)[None]
             np.testing.assert_allclose(np.asarray(y_blocked), y_ref,
                                        atol=2e-4, err_msg=f"{dtype} t={t}")
             # state continuity: second quantum picks up where the first
             # ended
             z2, y2 = step(z_blocked, x)
-            with oracle_scope:
-                if is_cplx:
-                    xc = xn[0, :, 0] + 1j * xn[0, :, 1]
-                    y2_ref, _ = iir_df(jnp.asarray(xc), jnp.asarray(b),
-                                       jnp.asarray(a), z_ref)
-                    y2_ref = np.stack([np.asarray(y2_ref).real,
-                                       np.asarray(y2_ref).imag], -1)[None]
-                else:
-                    y2_ref, _ = iir_df(jnp.asarray(xn[0]),
-                                       jnp.asarray(b), jnp.asarray(a),
-                                       z_ref)
-                    y2_ref = np.asarray(y2_ref)[None]
+            if is_cplx:
+                xc = xn[0, :, 0] + 1j * xn[0, :, 1]
+                y2_ref, _ = iir_df(jnp.asarray(xc), jnp.asarray(b),
+                                   jnp.asarray(a), z_ref)
+                y2_ref = np.stack([np.asarray(y2_ref).real,
+                                   np.asarray(y2_ref).imag], -1)[None]
+            else:
+                y2_ref, _ = iir_df(jnp.asarray(xn[0]),
+                                   jnp.asarray(b), jnp.asarray(a),
+                                   z_ref)
+                y2_ref = np.asarray(y2_ref)[None]
             np.testing.assert_allclose(np.asarray(y2), y2_ref, atol=2e-4,
                                        err_msg=f"{dtype} t={t} q2")
 

@@ -1,4 +1,4 @@
-"""TPU execution-layer tests: planar complex, MXU FFT, fused chains,
+"""Device execution-layer tests: planar complex, matmul FFT, fused chains,
 mesh sharding (on the virtual 8-device CPU mesh), and the driver entry
 points."""
 
@@ -336,37 +336,3 @@ def test_fir_matmul_carry_across_blocks():
     for ch in range(C):
         exp = np.convolve(x[ch], taps, mode="full")[: 2 * T]
         np.testing.assert_allclose(got[ch], exp, atol=1e-3)
-
-
-def test_pallas_cmatmul_matches_numpy():
-    from pothoscomms_tpu.parallel.pallas_kernels import cmatmul, HAVE_PALLAS
-    from pothoscomms_tpu.parallel.fft import dft_matrices
-
-    if not HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(11)
-    B, N = 64, 256
-    x = rng.normal(size=(B, N)) + 1j * rng.normal(size=(B, N))
-    fr, fi = dft_matrices(N, False)
-    got = cplx.from_planar(
-        np.asarray(cmatmul(jnp.asarray(cplx.to_planar(x)), fr, fi))
-    )
-    exp = np.fft.fft(x, axis=-1)
-    scale = np.abs(exp).max()
-    np.testing.assert_allclose(got / scale, exp / scale, atol=3e-6)
-
-
-def test_pallas_cmatmul_fallback_on_odd_shapes():
-    from pothoscomms_tpu.parallel.pallas_kernels import cmatmul
-    from pothoscomms_tpu.parallel.fft import dft_matrices
-
-    rng = np.random.default_rng(12)
-    B, N = 3, 100  # untileable: must fall back to jnp matmuls
-    x = rng.normal(size=(B, N)) + 1j * rng.normal(size=(B, N))
-    fr, fi = dft_matrices(N, False)
-    got = cplx.from_planar(
-        np.asarray(cmatmul(jnp.asarray(cplx.to_planar(x)), fr, fi))
-    )
-    exp = np.fft.fft(x, axis=-1)
-    scale = np.abs(exp).max()
-    np.testing.assert_allclose(got / scale, exp / scale, atol=3e-6)
